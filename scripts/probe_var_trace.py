@@ -1,4 +1,4 @@
-"""Probe: step a plugin block-by-block on devexec (TPU) vs the Python
+"""Probe: step a plugin block-by-block on devexec (device) vs the Python
 golden and print a set of vars after each block — locates the first
 divergent block/var when a null test reports var mismatches.
 

@@ -1,5 +1,5 @@
 """Device-path multi-instance comm graphs (VERDICT r2 #5): a RenderGraph
-whose vectorizable nodes run the TPU vector engine must null-match the
+whose vectorizable nodes run the device vector engine must null-match the
 all-shadow graph message-for-message and gmem-page-for-page.
 
 The device decomposition: control runs on the host in LOCKSTEP (each

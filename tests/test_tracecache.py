@@ -96,24 +96,31 @@ def test_disabled_by_env(trace_dir, monkeypatch):
         p.endswith(".jexp") for p in os.listdir(trace_dir))
 
 
-def test_bank_dir_fallback(trace_dir, tmp_path, monkeypatch):
-    # artifacts committed to the repo bank serve read-only when the
-    # primary (container-local) cache was wiped (round-5: ~/.cache is
-    # lost on every container migration)
+def test_section_key_differs_by_platform(trace_dir, monkeypatch):
+    # an export runs only on the platform it was lowered for, so the
+    # platform is part of the key: a CPU trace never serves a GPU render
+    prog = compile_plugin_source(SRC)
+    snap = make_initialized_shadow(prog, 48000.0, None)
+    from zorak_tpu.lowering.devgen import DeviceSection, section_dynamic_keys
+
+    sec = DeviceSection(prog, snap.state, "sample",
+                        section_dynamic_keys(prog, ("sample",)), 4096,
+                        consts={"samplesblock": 64.0})
+    shapes = ((sec.n_vars,), (sec.total_mem,), None)
+    assert tracecache.export_platform() == "cpu"
+    cpu_key = tracecache.section_key(sec, shapes)
+    monkeypatch.setattr(tracecache, "export_platform", lambda: "cuda")
+    assert tracecache.section_key(sec, shapes) != cpu_key
+
+
+def test_export_names_only_current_platform(trace_dir):
+    from jax import export as jexport
+
     x = (np.random.RandomState(2).randn(2, 192) * 0.4).astype(np.float32)
-    y0, v0, m0 = _render(x)
-    assert any(f.endswith(".jexp") for f in os.listdir(trace_dir))
-    # move the populated cache to the bank; fresh empty primary
-    bank = tmp_path / "bank"
-    os.rename(trace_dir, bank)
-    monkeypatch.setenv("ZORAK_TRACE_BANK_DIR", str(bank))
-    assert tracecache.bank_dir() == str(bank)
-    y1, v1, m1 = _render(x)
-    assert np.array_equal(y0, y1)
-    assert np.array_equal(v0, v1)
-    assert np.array_equal(m0, m1)
-    # served from the bank: the fresh primary holds no new trace for the
-    # hit sections... (a store may still occur for shapes the bank
-    # lacks); the render must NOT have required a re-trace of the main
-    # sections, which we check by the bank actually containing them
-    assert any(f.endswith(".jexp") for f in os.listdir(bank))
+    _render(x)
+    blobs = [p for p in os.listdir(trace_dir) if p.endswith(".jexp")]
+    assert blobs
+    for name in blobs:
+        with open(trace_dir / name, "rb") as f:
+            exp = jexport.deserialize(bytearray(f.read()))
+        assert tuple(exp.platforms) == ("cpu",)

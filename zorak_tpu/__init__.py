@@ -1,9 +1,9 @@
-"""zorak_tpu — TPU-native audio plugin platform.
+"""zorak_tpu — accelerator-native audio plugin platform (JAX/XLA).
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 ZorakAudio/ZorakAudio-Experimental-Plugins (reference mounted read-only at
 /root/reference): a JSFX (EEL2-dialect) frontend, a CPU golden shadow
-runtime, JAX lowerings of the per-sample DSP to time-parallel TPU programs,
+runtime, JAX lowerings of the per-sample DSP to time-parallel device programs,
 an offline render engine, comm/gmem services, and a null-test verification
 harness.
 
@@ -13,7 +13,7 @@ Layers (see SURVEY.md for the reference layer map this mirrors):
   semantics/  the EEL2 numeric contract shared by every backend
   shadow/     CPU golden reference executors (Python + generated C)
   lowering/   AST -> JAX (general scan engine + time-vectorizing specializer)
-  kernels/    Pallas TPU kernels for hot recurrences
+  kernels/    STFT and convolution pipelines in plain jnp
   runtime/    offline render engine, WAV io, oversampling, file slots
   comm/       message bus + gmem (block-synchronous, in-process/HBM)
   parallel/   vmap/shard_map batch scale-out over files x instances

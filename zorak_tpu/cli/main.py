@@ -1,7 +1,7 @@
 """Command-line interface: list / inspect / render / verify / bench.
 
 Mirrors the reference build tool's UX (--list / --only filters, ref:
-scripts/build.py:548-607) but for offline TPU rendering instead of
+scripts/build.py:548-607) but for offline device rendering instead of
 VST/CLAP packaging:
 
     python -m zorak_tpu.cli.main list   --catalog /root/reference

@@ -2,7 +2,7 @@
 
 The reference implements these over named shared-memory segments for
 cross-process DAW use (ref: src/DspJsfxMessageBus.cpp:17-23,
-src/DspJsfxGmem.h:15-38).  In the TPU offline engine all instances are
+src/DspJsfxGmem.h:15-38).  In the offline engine all instances are
 colocated, so the equivalents are in-process structures with the SAME
 semantics (ref: docs/DSP-JSFX-Communication.md):
 

@@ -1,11 +1,11 @@
-"""Convolution kernels: direct FIR (conv/MXU) and partitioned FFT
+"""Convolution kernels: direct FIR (XLA conv) and partitioned FFT
 convolution for long impulse responses.
 
-The TPU-native form of PsychoConvolver's partitioned engine (ref:
+The data-parallel form of PsychoConvolver's partitioned engine (ref:
 plugins/Spatialization/PsychoConvolver/src/PsychoConvolver.jsfx:288-401 —
 per-block fft_real + convolve_c accumulation over partitions): all
 partitions and all frames multiply-accumulate as ONE batched complex
-product (an einsum the MXU can chew on), then overlap-add.
+product accumulated over partitions, then overlap-add.
 """
 from __future__ import annotations
 
@@ -45,8 +45,8 @@ def partitioned_convolve(x: jnp.ndarray, ir: jnp.ndarray,
     """
     B = part_size
     N = 2 * B
-    # f32/c64 end-to-end: TPU f64 is software-emulated, and the audio
-    # contract compares f32-rounded samples at 1e-5
+    # f32/c64 end-to-end: the audio contract compares f32-rounded
+    # samples at 1e-5; the partition MAC is elementwise, not a matmul
     x = jnp.asarray(x, jnp.float32)
     ir = jnp.asarray(ir, jnp.float32)
     T = x.shape[-1]

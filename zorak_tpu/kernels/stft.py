@@ -1,16 +1,16 @@
 """STFT overlap-add processing on XLA FFT.
 
-The TPU-native form of the reference catalog's Spectral-category pattern
+The data-parallel form of the reference catalog's Spectral-category pattern
 (accumulate a block, fft_real, per-bin processing, ifft_real, overlap-add
 — e.g. Sample.jsfx's FFT-512 decrust, PsychoConvolver's partitions): all
 frames are processed AT ONCE as a batched FFT over [frames, fft_size],
 instead of one FFT per @block.
 
-Dtype policy: the whole pipeline is f32/c64.  TPU v5e has no f64 FFT and
-no f64 hardware at all (f64 is software-emulated at ~30x cost), so an
-f64 framing/window/OLA path would dominate the runtime while the audio
-contract only compares f32-rounded samples at 1e-5 — f32 end-to-end is
-both the fast and the honest choice.  The overlap-add and its window
+Dtype policy: the whole pipeline is f32/c64.  The audio contract
+compares f32-rounded samples at 1e-5, and an f64 framing/window/OLA path
+would move twice the bytes for precision the contract cannot see.  No
+stage is a matrix product, so no stage can fall to a reduced-precision
+matmul mode.  The overlap-add and its window
 normalization are built without scatters: frames split into size//hop
 chunks accumulate via static shifted slice-adds, and the window-sum is
 precomputed with numpy at trace time (it is input-independent).
@@ -129,8 +129,7 @@ def spectral_gate(x: jnp.ndarray, threshold_db: float = -50.0,
         gain = jnp.clip((over - 1.0) / 2.0, 0.0, 1.0)
         min_gain = F32(10.0 ** (floor_db / 20.0))
         g = min_gain + (1.0 - min_gain) * gain * gain * (3.0 - 2.0 * gain)
-        # keep the spectrum c64: an f64 gain would promote to c128, and
-        # the TPU f64-emulation pass can't expand a c64->c128 convert
+        # keep the spectrum c64: an f64 gain would promote it to c128
         return spec * g.astype(jnp.float32)
 
     return stft_process(x, gate, size, hop)

@@ -125,129 +125,8 @@ def eel_invsqrt(x):
     return y0 * (1.5 - 0.5 * x * y0 * y0)
 
 
-# ---------------------------------------------------------------------------
-# TPU-accurate trig
-#
-# The TPU f64-emulation pass (double-f32 pairs, ~2^-48 rel on +,-,*,/)
-# computes sin/cos through an argument reduction whose pi/2 constant is
-# only pair-precision, so per-call error grows to ~1e-12..1e-11 for
-# |x| in the filter-coefficient range (w0 in (0, pi], wrapped phases in
-# [0, 2pi]).  One-pole smoothers amplify a per-sample coefficient error
-# by their DC gain (x100..x1000), which is exactly the ~1e-8 scalar
-# drift the devexec null saw on 3DPanner (JSFXCorrectnessCheck.h:35
-# contract is 1e-8).  Fix: our own Cody-Waite reduction with 12-bit
-# constant parts — products k*Ci (|k| <= 2^12) fit in ONE f32 word, so
-# each subtraction cancels exactly in the pair format — then the
-# emulation's sin/cos on |r| <= pi/4, where it is ~3e-15 accurate.
-# Net per-call error ~1e-14; amplified it stays <=1e-11.
-#
-# CPU backends keep libm (bit-exact vs the golden executors); the
-# accurate path activates per-process via _use_tpu_trig().
-
-def _split12(v: float, parts: int):
-    """Split v into `parts` leading 12-bit pieces + an f64 tail."""
-    import math as _math
-    out = []
-    rem = v
-    for _ in range(parts):
-        m, e = _math.frexp(rem)
-        piece = _math.ldexp(_math.floor(m * 4096.0), e - 12)
-        out.append(piece)
-        rem -= piece
-    out.append(rem)
-    return out
-
-_PIO2_PARTS = _split12(1.5707963267948966, 3)   # C1,C2,C3 (12b) + tail
-_TWO_OVER_PI = 0.6366197723675814
-_TRIG_XMAX = 4096.0 * 1.5707963267948966        # |k| <= 2^12 exactness cap
-
-_TPU_TRIG = None
-_TRIG_FORCED = None
-
-
-def _use_tpu_trig() -> bool:
-    if _TRIG_FORCED is not None:
-        return _TRIG_FORCED
-    global _TPU_TRIG
-    if _TPU_TRIG is None:
-        import os
-
-        env = os.environ.get("ZORAK_TPU_TRIG")
-        if env is not None:
-            _TPU_TRIG = env not in ("0", "off", "")
-        else:
-            import jax
-
-            _TPU_TRIG = jax.default_backend() == "tpu"
-    return _TPU_TRIG
-
-
-class accurate_trig:
-    """Force the reduced-sincos path on (or off) for a trace region.
-
-    Reified devexec sections always trace WITH the accurate reduction so
-    the exported artifact is one cross-platform program with identical
-    numerics on CPU and TPU — a CPU-built trace then serves the TPU run
-    (Sample.jsfx's ~hour-long trace must be paid once, on either side).
-    On CPU the reduction costs ≤1e-14-scale deviation from libm, far
-    inside every contract."""
-
-    def __init__(self, enabled: bool = True):
-        self.enabled = enabled
-        self.prev = None
-
-    def __enter__(self):
-        global _TRIG_FORCED
-        self.prev = _TRIG_FORCED
-        _TRIG_FORCED = self.enabled
-        return self
-
-    def __exit__(self, *exc):
-        global _TRIG_FORCED
-        _TRIG_FORCED = self.prev
-        return False
-
-
-def _reduced_sincos(x):
-    k = jnp.round(x * _TWO_OVER_PI)
-    r = x - k * _PIO2_PARTS[0]
-    r = r - k * _PIO2_PARTS[1]
-    r = r - k * _PIO2_PARTS[2]
-    r = r - k * _PIO2_PARTS[3]
-    s, c = jnp.sin(r), jnp.cos(r)
-    q = jnp.mod(k, 4.0)
-    sin_x = jnp.where(q == 0.0, s,
-                      jnp.where(q == 1.0, c,
-                                jnp.where(q == 2.0, -s, -c)))
-    cos_x = jnp.where(q == 0.0, c,
-                      jnp.where(q == 1.0, -s,
-                                jnp.where(q == 2.0, -c, s)))
-    big = jnp.abs(x) > _TRIG_XMAX
-    return (jnp.where(big, jnp.sin(x), sin_x),
-            jnp.where(big, jnp.cos(x), cos_x))
-
-
-def eel_sin(x):
-    if not _use_tpu_trig():
-        return jnp.sin(x)
-    return _reduced_sincos(x)[0]
-
-
-def eel_cos(x):
-    if not _use_tpu_trig():
-        return jnp.cos(x)
-    return _reduced_sincos(x)[1]
-
-
-def eel_tan(x):
-    if not _use_tpu_trig():
-        return jnp.tan(x)
-    s, c = _reduced_sincos(x)
-    return s / c
-
-
 UNARY = {
-    "sin": eel_sin, "cos": eel_cos, "tan": eel_tan,
+    "sin": jnp.sin, "cos": jnp.cos, "tan": jnp.tan,
     "asin": jnp.arcsin, "acos": jnp.arccos, "atan": jnp.arctan,
     "exp": jnp.exp, "log": jnp.log, "log10": jnp.log10,
     "sqrt": jnp.sqrt, "abs": jnp.abs, "fabs": jnp.abs,
@@ -285,10 +164,10 @@ def linrec_assoc_scan(a, b, z0):
     slice+concat stages per channel, while doubling emits exactly
     ceil(log2(N)) pad+fma stages — and when `a` is a compile-time scalar
     the prefix-product channel collapses to one host-squared weight per
-    stage, so the whole recurrence is log2(N) single-array FMAs.  On the
-    stage-launch-bound TPU profile (many small f64-emulated stages inside
-    a segment scan) this is the difference between ~34 two-channel stages
-    and ~17 one-channel stages per recurrence.
+    stage, so the whole recurrence is log2(N) single-array FMAs: about
+    half the stages of the odd/even scheme, each on one channel instead
+    of two, which matters when many small stages run inside a segment
+    scan.
 
     z0 is folded into b[0] (b0' = b0 + a0*z0, identical op order to the
     sequential golden's first step), so no separate A*z0 term is needed.

@@ -19,9 +19,11 @@ StableHLO artifact, keyed by everything the trace folds:
   so editing the compiler invalidates every artifact), and
 * the jax version.
 
-Artifacts are exported for BOTH cpu and tpu when possible, so a trace
-paid on the CPU test path is reused by the TPU render path and vice
-versa.  `ZORAK_TRACE_CACHE=0` disables the disk layer entirely.
+Artifacts are exported for the current platform only, under its
+`jax.export` name, and that name is part of the key: an artifact traced
+on the CPU is never served to a GPU render.  `ZORAK_TRACE_CACHE=0`
+disables the disk layer entirely; `ZORAK_TRACE_CACHE_DIR` moves it from
+its default inside the checkout (`.cache/devgen_traces`).
 """
 from __future__ import annotations
 
@@ -45,25 +47,19 @@ def enabled() -> bool:
 
 
 def cache_dir() -> str:
-    path = os.environ.get(
-        "ZORAK_TRACE_CACHE_DIR",
-        os.path.expanduser("~/.cache/zorak_tpu/devgen_traces"))
+    from ..utils.cache import CACHE_ROOT
+
+    path = os.environ.get("ZORAK_TRACE_CACHE_DIR",
+                          str(CACHE_ROOT / "devgen_traces"))
     os.makedirs(path, exist_ok=True)
     return path
 
 
-def bank_dir() -> str:
-    """Read-only artifact bank committed with the repo.
+def export_platform() -> str:
+    """The current backend under its jax.export name ("cuda", "cpu")."""
+    from jax import export as jexport
 
-    ~/.cache is wiped whenever the container migrates (every round), which
-    re-imposed Sample.jsfx's ~27 min cold trace on each fresh checkout.
-    Artifacts copied here (scripts/bank_traces.py) ride git instead; the
-    section_key hashes the lowering source files, so a stale bank entry
-    can never be served — it simply misses."""
-    return os.environ.get(
-        "ZORAK_TRACE_BANK_DIR",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "..", "..", "artifacts", "devgen_traces"))
+    return jexport.default_export_platform()
 
 
 # ---------------------------------------------------------------------------
@@ -111,11 +107,8 @@ def section_key(sec, shapes_key) -> str:
     hashes every input the trace can fold: see module docstring."""
     h = hashlib.sha1()
     h.update(_code_hash().encode())
-    # backend-gated lowering modes would change the TRACE itself; reified
-    # sections force the accurate-trig reduction ON (devgen.step), making
-    # the artifact backend-independent — keyed here so any future change
-    # to that policy invalidates cleanly
-    h.update(f"trig={bool(sec.reify)};".encode())
+    # an export runs only on the platform it was lowered for
+    h.update(f"platform={export_platform()};".encode())
     # env-tunable trace-shaping budgets (devgen class attrs read from
     # ZORAK_UNROLL_* at import) change the emitted program
     h.update(repr((sec._UNROLL_MERGE_BUDGET,
@@ -175,15 +168,6 @@ def section_key(sec, shapes_key) -> str:
 # the step callable
 
 
-def _export_platforms():
-    import jax
-
-    cur = jax.default_backend()
-    plats = {"cpu", "tpu"}
-    plats.add(cur)
-    return tuple(sorted(plats)), cur
-
-
 def step_callable(sec):
     """Return f(vars, mem, midi=None) for a DeviceSection, backed by the
     disk trace cache.  Numerics: a disk hit replays the exact StableHLO
@@ -218,24 +202,16 @@ def step_callable(sec):
             if use_disk else None
         meta_path = os.path.join(cache_dir(), f"{key}.json") \
             if use_disk else None
-        load_blob, load_meta = blob_path, meta_path
-        if use_disk and not os.path.exists(load_blob):
-            # fall back to the committed artifact bank (read-only; the
-            # store path below still targets the writable primary dir)
-            bank_blob = os.path.join(bank_dir(), f"{key}.jexp")
-            if os.path.exists(bank_blob):
-                load_blob = bank_blob
-                load_meta = os.path.join(bank_dir(), f"{key}.json")
-        if use_disk and os.path.exists(load_blob):
+        if use_disk and os.path.exists(blob_path):
             try:
                 from jax import export as jexport
 
                 t0 = time.time()
-                with open(load_blob, "rb") as f:
+                with open(blob_path, "rb") as f:
                     exp = jexport.deserialize(bytearray(f.read()))
                 meta = {}
-                if os.path.exists(load_meta):
-                    with open(load_meta) as f:
+                if os.path.exists(meta_path):
+                    with open(meta_path) as f:
                         meta = json.load(f)
                 sec.fft_sizes_used |= set(meta.get("fft_sizes_used", ()))
                 _dbg(f"hit @{sec.section} {shapes} "
@@ -253,12 +229,9 @@ def step_callable(sec):
                 from jax import export as jexport
 
                 av, kw = _avals(vars_vec, mem, midi)
-                plats, cur = _export_platforms()
                 t0 = time.time()
-                try:
-                    exp = jexport.export(jitted, platforms=plats)(*av, **kw)
-                except Exception:
-                    exp = jexport.export(jitted)(*av, **kw)
+                exp = jexport.export(
+                    jitted, platforms=(export_platform(),))(*av, **kw)
                 blob = exp.serialize()
                 meta = {"fft_sizes_used": sorted(sec.fft_sizes_used),
                         "section": sec.section,

@@ -3,7 +3,7 @@
 Drives a plugin over audio the way the reference host does
 (ref: src/JSFXJuceProcessor.cpp:3239-3772): slider push before @init,
 @init, @slider, then block processing — but the audio path executes on
-TPU through the vectorizing specializer when the plugin qualifies, with
+the device through the vectorizing specializer when the plugin qualifies, with
 the CPU golden shadow as fallback and as the always-available reference.
 """
 from __future__ import annotations
@@ -136,7 +136,7 @@ class PluginInstance:
             except SpecializeError as exc:
                 self.spec_error = str(exc)
                 # sequential device executor: whole plugin stepped on the
-                # TPU — the middle path when time-vectorization rejects
+                # device — the middle path when time-vectorization rejects
                 try:
                     from ..lowering.devexec import DeviceExecKernel
 
@@ -406,7 +406,7 @@ class PluginInstance:
                              fetch_audio: bool = True,
                              sync_state: bool = True) -> RenderResult:
         """Sleep-eligible smart idle ON the vector path: awake spans render
-        through the TPU kernel with carry continuity (@block state frozen
+        through the device kernel with carry continuity (@block state frozen
         across sleeping gaps, like the reference skipping process calls);
         sleeping blocks emit silence.  Output-tail activity extends spans
         so decaying reverbs are not cut (ref: JSFXJuceProcessor.cpp:3742-

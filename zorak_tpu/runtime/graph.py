@@ -9,7 +9,7 @@ every instance at block k+1 (and to instances later in the processing
 order never earlier than their own begin_block, exactly like the
 shared-memory ring's block-resolved visibility).
 
-Device mode (prefer="auto"/"tpu"): the TPU-native decomposition of the
+Device mode (prefer="auto"/"tpu"): the device decomposition of the
 same schedule.  Control runs on the host in LOCKSTEP — each vectorizable
 node's @block/@slider interprets one block at a time through its golden
 executor against the SHARED CommWorld, interleaved with the other nodes

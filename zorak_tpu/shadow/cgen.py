@@ -31,12 +31,12 @@ from ..frontend.astnodes import (
 )
 from ..ir.program import PluginProgram
 from ..ir.symbols import dollar_const, slider_index, spl_index
+from ..utils.cache import CACHE_ROOT
 from .state import HostServices, MidiEvent, ShadowState
 
 _SLIDER_VAR_RE = re.compile(r"slider([1-9][0-9]?)$")
 
-CACHE_DIR = Path(os.environ.get("ZORAK_TPU_CACHE",
-                                os.path.expanduser("~/.cache/zorak_tpu"))) / "cgen"
+CACHE_DIR = CACHE_ROOT / "cgen"
 
 # host-callback opcodes (shared with the Python dispatcher below)
 _OPS = [

@@ -3,7 +3,7 @@
 Each @section and specialized user function is code-generated into a Python
 function (three-address style so EEL2 evaluation order is preserved), then
 exec'd against the numeric helpers in semantics.scalar.  This executor is
-the platform's correctness anchor: the JAX/TPU lowerings are null-tested
+the platform's correctness anchor: the JAX lowerings are null-tested
 against it (like the reference's WDL/EEL2 shadow interpreter, ref:
 src/JSFXCorrectnessCheck.h).
 """

@@ -1,13 +1,20 @@
-"""Persistent XLA compile cache, keyed by a host fingerprint.
+"""Persistent XLA compile cache.
 
 Coupled-pipeline plugins have multi-minute first compiles; the cache
-makes every later process (tests, bench, suite, CLI) reuse them.  The
-fingerprint matters: XLA:CPU AOT entries compiled for another machine's
-feature set SIGILL when loaded (containers migrate hosts between
-rounds)."""
+makes every later process (tests, bench, CLI) reuse them.  Where
+`JAX_COMPILATION_CACHE_DIR` is set, JAX keeps its cache there and this
+module sets no other directory.  Otherwise the cache lives at a fixed
+path inside the checkout (`.cache/xla/<key>`, listed in .gitignore): the
+path is part of what makes a later process hit.  The CPU key carries a
+host fingerprint, because XLA:CPU AOT entries compiled for another
+machine's feature set SIGILL when loaded."""
 import hashlib
 import os
 import platform
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+CACHE_ROOT = REPO_ROOT / ".cache"
 
 
 def host_fingerprint() -> str:
@@ -35,10 +42,10 @@ def host_fingerprint() -> str:
 
 def raise_map_count(target: int = 1 << 20) -> None:
     """XLA:CPU's ORC JIT maps thousands of sections per big executable;
-    a full catalog sweep in one process exhausts the default
+    many large compiles in one process exhaust the default
     vm.max_map_count=65530 (symptom: 'LLVM compilation error: Cannot
     allocate memory' + munmap ENOMEM, then a segfault).  Raise it when
-    we can (root in this container); harmless no-op otherwise."""
+    we can; harmless no-op otherwise."""
     try:
         with open("/proc/sys/vm/max_map_count") as f:
             cur = int(f.read().strip())
@@ -49,18 +56,24 @@ def raise_map_count(target: int = 1 << 20) -> None:
         pass
 
 
+def default_cache_dir(backend: str) -> Path:
+    """The in-checkout cache directory for one backend."""
+    key = f"cpu-{host_fingerprint()}" if backend == "cpu" else backend
+    return CACHE_ROOT / "xla" / key
+
+
 def enable_persistent_cache(min_compile_secs: float = 10.0) -> str:
+    """Turn the persistent compile cache on; returns its directory."""
     import jax
 
     raise_map_count()
-    # TPU executables are serialized device programs — valid regardless of
-    # which host the container lands on, so key them by backend name only.
-    # XLA:CPU AOT output is host-feature-specific (see host_fingerprint).
-    backend = jax.default_backend()
-    key = host_fingerprint() if backend == "cpu" else backend
-    path = os.path.expanduser(f"~/.cache/zorak_tpu/jaxcache-{key}")
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs",
                       float(min_compile_secs))
-    return path
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        # JAX reads the variable itself; keep whatever it chose
+        return env
+    path = default_cache_dir(jax.default_backend())
+    path.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(path))
+    return str(path)

@@ -1,6 +1,6 @@
 """Staged-lowering dumps — the observability analog of the reference AOT's
 --opt-report / --opt-dump-dir staged files (ref: dsp_jsfx_aot.py:6315-6357),
-with the TPU pipeline's stages: source -> lowered AST -> specialization
+with the device pipeline's stages: source -> lowered AST -> specialization
 plan -> jaxpr -> StableHLO.
 """
 from __future__ import annotations

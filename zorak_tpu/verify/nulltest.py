@@ -1,4 +1,4 @@
-"""Null-test harness: TPU render vs CPU golden shadow.
+"""Null-test harness: device render vs CPU golden shadow.
 
 Port of the reference correctness-check semantics (ref:
 src/JSFXCorrectnessCheck.h:34-35): audio compared on f32-rounded samples
@@ -16,22 +16,6 @@ import numpy as np
 AUDIO_EPS = 1.0e-5   # ref: JSFXCorrectnessCheck.h:34
 SCALAR_EPS = 1.0e-8  # ref: JSFXCorrectnessCheck.h:35
 MEM_PAGE = 1024      # ref: JSFXCorrectnessCheck.h:38 (kMemPageDoubles)
-# Scalar/mem contract for renders on the TPU's EMULATED f64 (a ~48-bit
-# significand f32-pair format): per-op results sit 1-3 f64 ulps off
-# strict IEEE — sub-ulp in pair precision, unfixable by lowering — and
-# chaotic DSP recurrences amplify the rounding-ORDER difference past
-# 1e-8 over a few thousand samples (measured: 3DPanner max |delta|
-# 1.1e-8 at T=3000, saturating; docs/tpu_f64.md).  5e-8 mirrors the
-# 1-ulp-f32 allowance the audio contract already grants (6e-8 at 1.0)
-# and is only legitimate when the SAME exported program is bit-exact on
-# true-f64 hardware (the CPU tiny nulls assert exactly that).
-EMULATED_F64_SCALAR_EPS = 5.0e-8
-# The emulated contract is SCALE-AWARE (|delta| <= eps * max(1, |ref|)):
-# pair arithmetic carries RELATIVE error, so an absolute 1e-8 on a var
-# sitting at 20.0 would demand 5e-10 relative — below what a 48-bit
-# significand can even represent drift-free (Texture's knee_t ~= 20.2
-# fails absolute at 6.2e-7 but is 3.1e-8 RELATIVE).  True-f64 backends
-# keep the reference's absolute semantics.
 
 
 @dataclass
@@ -50,9 +34,6 @@ class NullReport:
     midi_mismatch: Optional[Tuple[str, object, object]] = None
     # (mask_name, ref_mask, test_mask)
     mask_mismatch: Optional[Tuple[str, int, int]] = None
-    # the scalar/mem epsilon this report was judged at (SCALAR_EPS, or
-    # EMULATED_F64_SCALAR_EPS for TPU emulated-f64 renders)
-    scalar_eps_used: float = SCALAR_EPS
 
     @property
     def max_delta_dbfs(self) -> float:
@@ -71,8 +52,6 @@ class NullReport:
         db_s = f"{db:.1f} dBFS" if math.isfinite(db) else "-inf dBFS"
         status = "PASS" if self.passed else "FAIL"
         extra = ""
-        if self.scalar_eps_used != SCALAR_EPS:
-            extra += f", scalar_eps={self.scalar_eps_used:g}"
         if self.mem_mismatch is not None:
             a, page, rv, tv = self.mem_mismatch
             extra += f", mem[{a}] (page {page}): {rv!r} vs {tv!r}"
@@ -105,29 +84,24 @@ def compare_audio(reference: np.ndarray, test: np.ndarray,
 
 def compare_states(ref_state, test_state, eps: float = SCALAR_EPS,
                    report: Optional[NullReport] = None,
-                   skip: frozenset = frozenset(),
-                   relative: bool = False) -> NullReport:
-    """Compare user vars (+ spl registers) between two shadow states.
-
-    relative=True switches to the scale-aware emulated-f64 semantics
-    (|delta| <= eps * max(1, |ref|)); default is the reference's
-    absolute compare (JSFXCorrectnessCheck.h nearlyEqual)."""
+                   skip: frozenset = frozenset()) -> NullReport:
+    """Compare user vars (+ spl registers) between two shadow states,
+    absolute like the reference (JSFXCorrectnessCheck.h nearlyEqual)."""
     rep = report or NullReport()
     for name, rv in ref_state.V.items():
         if name in skip:
             continue
         tv = test_state.V.get(name, 0.0)
-        if _differs(rv, tv, eps, relative):
+        if _differs(rv, tv, eps):
             rep.var_mismatches.append((name, float(rv), float(tv)))
     for i in range(64):
-        if _differs(ref_state.spl[i], test_state.spl[i], eps, relative):
+        if _differs(ref_state.spl[i], test_state.spl[i], eps):
             rep.var_mismatches.append((f"spl{i}", ref_state.spl[i], test_state.spl[i]))
     return rep
 
 
 def compare_memory_pages(ref_state, test_state, eps: float = SCALAR_EPS,
-                         report: Optional[NullReport] = None,
-                         relative: bool = False) -> NullReport:
+                         report: Optional[NullReport] = None) -> NullReport:
     """Compare mem[] in 1024-double pages up to max(used_ref, used_test),
     zero-filling past each side's extent; latch the FIRST mismatch with its
     page number (ref: JSFXCorrectnessCheck.h:991-1040)."""
@@ -145,10 +119,9 @@ def compare_memory_pages(ref_state, test_state, eps: float = SCALAR_EPS,
     if b_full.size < used:
         b_full = np.concatenate([b_full, np.zeros(used - b_full.size)])
     d = np.abs(a_full - b_full)
-    tol = eps * np.maximum(np.abs(a_full), 1.0) if relative else eps
     both_nan = np.isnan(a_full) & np.isnan(b_full)
     one_nan = np.isnan(a_full) ^ np.isnan(b_full)
-    idx = np.where(((d > tol) | one_nan) & ~both_nan)[0]
+    idx = np.where(((d > eps) | one_nan) & ~both_nan)[0]
     if idx.size:
         a0 = int(idx[0])
         rep.mem_mismatch = (a0, a0 // MEM_PAGE,
@@ -212,14 +185,12 @@ def compare_pending_masks(ref_state, test_state,
     return rep
 
 
-def _differs(a: float, b: float, eps: float,
-             relative: bool = False) -> bool:
+def _differs(a: float, b: float, eps: float) -> bool:
     if a != a and b != b:  # both NaN -> equal
         return False
     if a == b:
         return False
-    tol = eps * max(abs(a), 1.0) if relative else eps
-    return not (abs(a - b) <= tol)
+    return not (abs(a - b) <= eps)
 
 
 def apply_slider_state(state, program,
@@ -303,37 +274,16 @@ def export_bundle(out_dir, reference: np.ndarray, test: np.ndarray,
     return paths
 
 
-def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
-                     block_size: int = 512, segment_len: int = 4096,
-                     slider_overrides: Optional[Dict[int, float]] = None,
-                     compare_state: bool = True, golden: str = "python",
-                     compare_mem: bool = False, midi=None,
-                     export_dir=None, name: str = "nulltest",
-                     engine: str = "vector",
-                     scalar_eps: Optional[float] = None) -> NullReport:
-    """Render x through the golden shadow AND the device kernel; compare.
+def golden_render(program, x: np.ndarray, srate: float = 48000.0,
+                  block_size: int = 512, golden: str = "native",
+                  slider_overrides: Optional[Dict[int, float]] = None,
+                  midi=None):
+    """Render x through a golden executor in host-sized blocks.
 
-    x: float32 [channels, samples].  golden: "python" (exact reference
-    semantics, slow) or "native" (C-compiled, bit-identical, fast).
-    compare_state adds var/spl + pending-mask + MIDI-out compares;
-    compare_mem additionally diffs the whole heap in 1024-double pages
-    (ref: JSFXCorrectnessCheck.h:915-1040).  midi: optional
-    [(abs_offset, b1, b2, b3)] events fed to both sides.
-    engine: "vector" (the time-vectorizing specializer) or "devexec"
-    (the sequential whole-plugin device executor).
-    scalar_eps: override of the 1e-8 scalar/mem contract
-    (JSFXCorrectnessCheck.h:35).  The documented use is the EMULATED_F64
-    contract on TPU renders (see docs/tpu_f64.md): the chip's f64 is a
-    ~48-bit-significand pair format whose per-op results sit 1-3 f64
-    ulps off strict IEEE, and chaotic DSP state amplifies that sub-ulp
-    rounding-order difference past 1e-8 over a few thousand samples even
-    though the LOWERING is bit-exact on true-f64 hardware.
-    """
-    from ..lowering import specialize_sample_kernel
-
-    nch, total = x.shape
-
-    # golden render (block loop like a host would drive)
+    golden: "native" (C-compiled, bit-identical, fast) or "python" (exact
+    reference semantics, slow).  midi: optional [(abs_offset, b1, b2, b3)].
+    Returns (final state, y float32 [channels, samples], MIDI out events
+    as (abs_offset, b1, b2, b3[, payload]))."""
     if golden == "native":
         from ..shadow import compile_native_shadow
 
@@ -345,8 +295,9 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
     else:
         gold = make_initialized_shadow(program, srate, slider_overrides)
     midi = sorted(midi or [], key=lambda e: e[0])
+    total = x.shape[1]
     y_ref = np.zeros_like(x)
-    gold_midi_out = []
+    midi_out = []
     for start in range(0, total, block_size):
         stop = min(start + block_size, total)
         if midi:
@@ -363,8 +314,36 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
                   int(ev.b2), int(ev.b3))
             if ev.data is not None:
                 et += (tuple(int(v) & 0xFF for v in ev.data),)
-            gold_midi_out.append(et)
+            midi_out.append(et)
         gold.state.midi_out = []
+    return gold.state, y_ref, midi_out
+
+
+def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
+                     block_size: int = 512, segment_len: int = 4096,
+                     slider_overrides: Optional[Dict[int, float]] = None,
+                     compare_state: bool = True, golden: str = "python",
+                     compare_mem: bool = False, midi=None,
+                     export_dir=None, name: str = "nulltest",
+                     engine: str = "vector") -> NullReport:
+    """Render x through the golden shadow AND the device kernel; compare.
+
+    x: float32 [channels, samples].  golden: "python" (exact reference
+    semantics, slow) or "native" (C-compiled, bit-identical, fast).
+    compare_state adds var/spl + pending-mask + MIDI-out compares;
+    compare_mem additionally diffs the whole heap in 1024-double pages
+    (ref: JSFXCorrectnessCheck.h:915-1040).  midi: optional
+    [(abs_offset, b1, b2, b3)] events fed to both sides.
+    engine: "vector" (the time-vectorizing specializer) or "devexec"
+    (the sequential whole-plugin device executor).
+    """
+    from ..lowering import specialize_sample_kernel
+
+    nch = x.shape[0]
+    gold_state, y_ref, gold_midi_out = golden_render(
+        program, x, srate, block_size=block_size, golden=golden,
+        slider_overrides=slider_overrides, midi=midi)
+    midi = sorted(midi or [], key=lambda e: e[0])
 
     # vectorized render from an identical snapshot
     snap_owner = make_initialized_shadow(program, srate, slider_overrides)
@@ -381,19 +360,14 @@ def null_test_plugin(program, x: np.ndarray, srate: float = 48000.0,
     y_test, carry = kern.render(x, midi=midi if midi else None)
 
     rep = compare_audio(y_ref, y_test)
-    seps = SCALAR_EPS if scalar_eps is None else float(scalar_eps)
-    srel = scalar_eps is not None     # overridden => emulated-f64 semantics
-    rep.scalar_eps_used = seps
     if compare_state:
         kern.writeback(carry, snap_owner.state)
-        compare_states(gold.state, snap_owner.state, eps=seps, report=rep,
-                       relative=srel)
-        compare_pending_masks(gold.state, snap_owner.state, report=rep)
+        compare_states(gold_state, snap_owner.state, report=rep)
+        compare_pending_masks(gold_state, snap_owner.state, report=rep)
         if midi or gold_midi_out or kern.last_midi_out:
             compare_midi_out(gold_midi_out, kern.last_midi_out, report=rep)
         if compare_mem:
-            compare_memory_pages(gold.state, snap_owner.state, eps=seps,
-                                 report=rep, relative=srel)
+            compare_memory_pages(gold_state, snap_owner.state, report=rep)
     if export_dir is not None:
         export_bundle(export_dir, y_ref, y_test, srate, rep, name=name)
     return rep
